@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from nsparse_tpu.io.generate import random_csr, rmat_csr
-from nsparse_tpu.ops.binning import bin_rows, bin_histogram, flops_per_row
+from nsparse_jax.io.generate import random_csr, rmat_csr
+from nsparse_jax.ops.binning import bin_rows, bin_histogram, flops_per_row
 
 
 def test_bins_partition_rows():

@@ -5,10 +5,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from nsparse_tpu.formats.dia import DIA
-from nsparse_tpu.io.generate import random_csr, stencil_csr
-from nsparse_tpu.ops.spmv import spmv, spmv_dia
-from nsparse_tpu.utils.checking import ans_check, spmv_oracle
+from nsparse_jax.formats.dia import DIA
+from nsparse_jax.io.generate import random_csr, stencil_csr
+from nsparse_jax.ops.spmv import spmv, spmv_dia
+from nsparse_jax.utils.checking import ans_check, spmv_oracle
 
 
 def test_dia_roundtrip():
@@ -70,6 +70,6 @@ def random_csr_diagonalish():
     s = s.tolil()
     for _ in range(5):
         s[rng.integers(0, m), rng.integers(0, m)] = 1.0
-    from nsparse_tpu.formats.csr import CSR
+    from nsparse_jax.formats.csr import CSR
 
     return CSR.from_scipy(s.tocsr())

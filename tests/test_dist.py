@@ -5,23 +5,21 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from nsparse_tpu.io.generate import random_csr, stencil_csr
-from nsparse_tpu.parallel.mesh import make_mesh
-from nsparse_tpu.parallel.partition import partition_rows
-from nsparse_tpu.parallel.spmv import spmv_dist
-from nsparse_tpu.parallel.spgemm import (
+from nsparse_jax.io.generate import random_csr, stencil_csr
+from nsparse_jax.parallel.mesh import make_mesh
+from nsparse_jax.parallel.partition import partition_rows
+from nsparse_jax.parallel.spmv import spmv_dist
+from nsparse_jax.parallel.spgemm import (
     gather_partitioned,
     rap_dist,
     spgemm_dist,
     spgemm_plan_dist,
     spgemm_numeric_dist,
 )
-from nsparse_tpu.utils.checking import check_spgemm_answer, spmv_oracle, spgemm_oracle
+from nsparse_jax.utils.checking import check_spgemm_answer, spmv_oracle, spgemm_oracle
 
 
-pytestmark = pytest.mark.skipif(
-    len(jax.devices()) < 2, reason="needs multi-device mesh"
-)
+pytestmark = pytest.mark.usefixtures("multi_device")
 
 
 def test_partition_roundtrip():
@@ -83,7 +81,7 @@ def test_spgemm_dist_plan_reuse():
 
 
 def test_spmv_halo():
-    from nsparse_tpu.parallel.halo import (
+    from nsparse_jax.parallel.halo import (
         partition_banded,
         shard_x,
         spmv_halo,
@@ -103,8 +101,8 @@ def test_spmv_halo():
 def test_spmv_halo_diagonal():
     # pure-diagonal matrix: halo == 0; x_loc[-0:] would alias the whole
     # shard and misalign the rebased columns (advisor round-1 finding)
-    from nsparse_tpu.formats.csr import CSR
-    from nsparse_tpu.parallel.halo import partition_banded, shard_x, spmv_halo
+    from nsparse_jax.formats.csr import CSR
+    from nsparse_jax.parallel.halo import partition_banded, shard_x, spmv_halo
     import scipy.sparse as sp
 
     m = 32
@@ -122,8 +120,8 @@ def test_spmv_halo_diagonal():
 
 def test_partition_banded_rejects_wide_band():
     import pytest as _pytest
-    from nsparse_tpu.parallel.halo import partition_banded
-    from nsparse_tpu.io.generate import random_csr
+    from nsparse_jax.parallel.halo import partition_banded
+    from nsparse_jax.io.generate import random_csr
 
     a = random_csr(64, 64, density=0.3, seed=5)
     with _pytest.raises(ValueError):
@@ -139,7 +137,7 @@ def test_rap_dist():
 
     p_dense = np.zeros((n, nc))
     p_dense[np.arange(n), rng.integers(0, nc, n)] = 1.0
-    from nsparse_tpu.formats.csr import CSR
+    from nsparse_jax.formats.csr import CSR
 
     p = CSR.from_scipy(sp.csr_matrix(p_dense))
     r = CSR.from_scipy(sp.csr_matrix(p_dense.T))
@@ -150,15 +148,15 @@ def test_rap_dist():
 
 
 def test_spgemm_halo():
-    from nsparse_tpu.parallel.spgemm import gather_partitioned
-    from nsparse_tpu.parallel.spgemm_halo import spgemm_halo
+    from nsparse_jax.parallel.spgemm import gather_partitioned
+    from nsparse_jax.parallel.spgemm_halo import spgemm_halo
 
     mesh = make_mesh(8)
     a = stencil_csr(16, 16)
     ap = partition_rows(a, 8)
     c = spgemm_halo(ap, ap, mesh)
     got = gather_partitioned(c)
-    from nsparse_tpu.utils.checking import spgemm_abs_oracle
+    from nsparse_jax.utils.checking import spgemm_abs_oracle
 
     assert check_spgemm_answer(
         got, spgemm_oracle(a, a), abs_ref=spgemm_abs_oracle(a, a),
@@ -167,7 +165,7 @@ def test_spgemm_halo():
 
 
 def test_spgemm_halo_rejects_wide_band():
-    from nsparse_tpu.parallel.spgemm_halo import spgemm_halo_plan
+    from nsparse_jax.parallel.spgemm_halo import spgemm_halo_plan
 
     mesh = make_mesh(8)
     r = random_csr(64, 64, 0.3, seed=3)
@@ -179,10 +177,10 @@ def test_spgemm_halo_rejects_wide_band():
 def test_rap_halo():
     """R @ A @ P fully sharded with halo exchange only."""
     import scipy.sparse as sp
-    from nsparse_tpu.formats.csr import CSR
-    from nsparse_tpu.parallel.spgemm import gather_partitioned
-    from nsparse_tpu.parallel.spgemm_halo import rap_halo
-    from nsparse_tpu.utils.checking import spgemm_abs_oracle
+    from nsparse_jax.formats.csr import CSR
+    from nsparse_jax.parallel.spgemm import gather_partitioned
+    from nsparse_jax.parallel.spgemm_halo import rap_halo
+    from nsparse_jax.utils.checking import spgemm_abs_oracle
 
     mesh = make_mesh(8)
     n, nc = 256, 64
@@ -206,10 +204,10 @@ def test_rap_halo():
 
 def test_halo_paths_non_divisible_shapes():
     """195 rows over 8 shards: padded last shard, both halo paths."""
-    from nsparse_tpu.parallel.halo import partition_banded, shard_x, spmv_halo
-    from nsparse_tpu.parallel.spgemm import gather_partitioned
-    from nsparse_tpu.parallel.spgemm_halo import spgemm_halo
-    from nsparse_tpu.utils.checking import ans_check, spgemm_abs_oracle
+    from nsparse_jax.parallel.halo import partition_banded, shard_x, spmv_halo
+    from nsparse_jax.parallel.spgemm import gather_partitioned
+    from nsparse_jax.parallel.spgemm_halo import spgemm_halo
+    from nsparse_jax.utils.checking import ans_check, spgemm_abs_oracle
 
     a = stencil_csr(15, 13)
     mesh = make_mesh(8)

@@ -4,10 +4,10 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 
-from nsparse_tpu.formats.coo import COO
-from nsparse_tpu.formats.csr import CSR
-from nsparse_tpu.formats.ell import ELL
-from nsparse_tpu.formats.bsr import BSR
+from nsparse_jax.formats.coo import COO
+from nsparse_jax.formats.csr import CSR
+from nsparse_jax.formats.ell import ELL
+from nsparse_jax.formats.bsr import BSR
 
 
 def _rand(m, n, density, seed=0):

@@ -8,11 +8,11 @@ import jax
 import jax.numpy as jnp
 import scipy.sparse as sp
 
-from nsparse_tpu.formats.csr import CSR
-from nsparse_tpu.formats.ell import ELL
-from nsparse_tpu.ops.spmv import spmv_csr, spmv_ell
-from nsparse_tpu.ops.spgemm import spgemm, spgemm_plan, spgemm_numeric
-from nsparse_tpu.utils.checking import (
+from nsparse_jax.formats.csr import CSR
+from nsparse_jax.formats.ell import ELL
+from nsparse_jax.ops.spmv import spmv_csr, spmv_ell
+from nsparse_jax.ops.spgemm import spgemm, spgemm_plan, spgemm_numeric
+from nsparse_jax.utils.checking import (
     ans_check,
     check_spgemm_answer,
     spgemm_abs_oracle,

@@ -7,8 +7,8 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 
-from nsparse_tpu.io.matrix_market import read_mtx, read_mtx_arrays, write_mtx
-from nsparse_tpu.formats.csr import CSR
+from nsparse_jax.io.matrix_market import read_mtx, read_mtx_arrays, write_mtx
+from nsparse_jax.formats.csr import CSR
 
 EXPECTED_FIXTURE = np.array(
     [
@@ -75,16 +75,16 @@ def test_roundtrip(tmp_path, rng):
 
 def test_native_parser_parity(fixture_mtx):
     """C++ parser must agree with the NumPy path exactly."""
-    from nsparse_tpu.native import try_native_read_mtx
+    from nsparse_jax.native import try_native_read_mtx
 
     res = try_native_read_mtx(fixture_mtx)
     if res is None:
         pytest.skip("native parser unavailable")
-    os.environ["NSPARSE_TPU_NO_NATIVE"] = "1"
+    os.environ["NSPARSE_NO_NATIVE"] = "1"
     try:
         r2, c2, v2, shape2 = read_mtx_arrays(fixture_mtx)
     finally:
-        del os.environ["NSPARSE_TPU_NO_NATIVE"]
+        del os.environ["NSPARSE_NO_NATIVE"]
     r1, c1, v1, shape1 = res
     assert shape1 == shape2
     key1 = np.lexsort((c1, r1))

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from nsparse_tpu import native
-from nsparse_tpu.io.generate import random_csr, rmat_csr, stencil_csr
+from nsparse_jax import native
+from nsparse_jax.io.generate import random_csr, rmat_csr, stencil_csr
 
 
 def _plan_inputs(a, b):
@@ -30,14 +30,14 @@ def test_native_matches_numpy(maker, monkeypatch):
     if native.get_lib() is None:
         pytest.skip("native planner unavailable")
     res_native = native.spgemm_plan_host(*args)
-    monkeypatch.setenv("NSPARSE_TPU_NO_NATIVE", "1")
+    monkeypatch.setenv("NSPARSE_NO_NATIVE", "1")
     saved = native._lib
     native._lib = None
     try:
         res_numpy = native.spgemm_plan_host(*args)
     finally:
         native._lib = saved
-        monkeypatch.delenv("NSPARSE_TPU_NO_NATIVE")
+        monkeypatch.delenv("NSPARSE_NO_NATIVE")
     names = ["apos", "bpos", "out_pos", "c_rpt", "c_col", "p_total", "c_nnz"]
     for name, x, y in zip(names, res_native, res_numpy):
         if isinstance(x, np.ndarray):

@@ -7,14 +7,14 @@ constructions (a P1 FEM stiffness matrix on an unstructured Delaunay
 triangulation of an annulus, an L-shaped-domain 5-point Laplacian, a
 zipf-degree circuit-class matrix), not the synthetic generators; networked
 environments can additionally pull true SuiteSparse matrices through
-``nsparse_tpu.io.suitesparse.fetch``.
+``nsparse_jax.io.suitesparse.fetch``.
 """
 
 import os
 
 import pytest
 
-from nsparse_tpu import cli
+from nsparse_jax import cli
 
 DATA = os.path.join(os.path.dirname(__file__), "..", "data")
 

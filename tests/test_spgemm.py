@@ -5,17 +5,17 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 
-from nsparse_tpu.formats.csr import CSR
-from nsparse_tpu.io.generate import random_csr, rmat_csr, stencil_csr
-from nsparse_tpu.io.matrix_market import read_mtx
-from nsparse_tpu.ops.spgemm import (
+from nsparse_jax.formats.csr import CSR
+from nsparse_jax.io.generate import random_csr, rmat_csr, stencil_csr
+from nsparse_jax.io.matrix_market import read_mtx
+from nsparse_jax.ops.spgemm import (
     spgemm,
     spgemm_flops,
     spgemm_numeric,
     spgemm_plan,
     spgemm_symbolic_nnz,
 )
-from nsparse_tpu.utils.checking import check_spgemm_answer, spgemm_oracle
+from nsparse_jax.utils.checking import check_spgemm_answer, spgemm_oracle
 
 
 def _check(a: CSR, b: CSR):
@@ -116,11 +116,11 @@ def test_dtypes(dtype):
 
 
 def test_spgemm_method_auto():
-    """Library-level method dispatch (esc vs MXU block path)."""
-    from nsparse_tpu.formats.csr import CSR
-    from nsparse_tpu.io.generate import fem_block_csr
-    from nsparse_tpu.ops.spgemm import spgemm
-    from nsparse_tpu.utils.checking import (check_spgemm_answer,
+    """Library-level method dispatch (esc vs dense-tile block path)."""
+    from nsparse_jax.formats.csr import CSR
+    from nsparse_jax.io.generate import fem_block_csr
+    from nsparse_jax.ops.spgemm import spgemm
+    from nsparse_jax.utils.checking import (check_spgemm_answer,
                                             spgemm_abs_oracle, spgemm_oracle)
 
     base = fem_block_csr(24, dof=8, neighbors=3, bandwidth=6, seed=9)
@@ -134,22 +134,14 @@ def test_spgemm_method_auto():
 
 
 # ---------------------------------------------------------------------------
-# slab path (bin-padded class reductions + routed shuffle)
+# host-planned numeric phase on long and mixed output-entry product runs
 # ---------------------------------------------------------------------------
 
 
 def _check_slab(a: CSR, b: CSR):
-    """Force the slab numeric path (pallas interpret on CPU) vs oracle."""
-    import nsparse_tpu.ops.kernels.flat_gather as fg
-
-    plan = spgemm_plan(a, b, shuffle=True, layout="global")
-    assert plan.slab_shuffle is not None
-    old = fg.FORCE_PALLAS
-    fg.FORCE_PALLAS = True
-    try:
-        c = spgemm_numeric(plan, a, b)
-    finally:
-        fg.FORCE_PALLAS = old
+    """Host plan + numeric phase vs the oracle at the dtype's tolerance."""
+    plan = spgemm_plan(a, b)
+    c = spgemm_numeric(plan, a, b)
     ref = spgemm_oracle(a, b)
     assert check_spgemm_answer(c, ref, verbose=True)
     rtol = 1e-10 if a.val.dtype == jnp.float64 else 2e-5
@@ -161,13 +153,12 @@ def _check_slab(a: CSR, b: CSR):
 
 def test_slab_path_rmat():
     a = rmat_csr(9, edge_factor=6, dtype=np.float64, seed=4)
-    plan = _check_slab(a, a)
-    assert len(plan.slab_levels) == 1  # no entry exceeds CHUNK products
+    _check_slab(a, a)
 
 
 def test_slab_path_multilevel():
     # a dense column block in A times dense rows of B makes C entries with
-    # > CHUNK intermediate products -> chunking + a second slab level
+    # 1400 intermediate products each
     rng = np.random.default_rng(7)
     k = 1400
     a_d = rng.standard_normal((3, k))
@@ -175,12 +166,11 @@ def test_slab_path_multilevel():
     a = CSR.from_scipy(sp.csr_matrix(a_d))
     b = CSR.from_scipy(sp.csr_matrix(b_d))
     plan = _check_slab(a, b)
-    assert len(plan.slab_levels) >= 2
-    assert len(plan.lvl_idx) >= 1  # level-2 gather exists
+    assert plan.n_products == 3 * k * 5
 
 
 def test_slab_path_mixed_lengths():
-    # mix of tiny rows and one heavy row (chunked) in the same product
+    # mix of tiny rows and one heavy row in the same product
     rng = np.random.default_rng(8)
     m = 64
     dense_row = np.zeros((1, m))

@@ -6,14 +6,13 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 
-from nsparse_tpu.formats.csr import CSR
-from nsparse_tpu.formats.ell import ELL
-from nsparse_tpu.formats.bsr import BSR
-from nsparse_tpu.io.generate import random_csr, rmat_csr, stencil_csr
-from nsparse_tpu.io.matrix_market import read_mtx
-from nsparse_tpu.ops.spmv import spmv, spmv_csr, spmv_ell, spmv_bsr
-from nsparse_tpu.ops.kernels.spmv_pallas import spmv_bsr_pallas
-from nsparse_tpu.utils.checking import ans_check, spmv_oracle
+from nsparse_jax.formats.csr import CSR
+from nsparse_jax.formats.ell import ELL
+from nsparse_jax.formats.bsr import BSR
+from nsparse_jax.io.generate import random_csr, rmat_csr, stencil_csr
+from nsparse_jax.io.matrix_market import read_mtx
+from nsparse_jax.ops.spmv import spmv, spmv_csr, spmv_ell, spmv_bsr
+from nsparse_jax.utils.checking import ans_check, spmv_oracle
 
 
 def _x(n, dtype, seed=1):
@@ -77,29 +76,19 @@ def test_spmv_jit_under_vmap_composes():
         )
 
 
-def test_spmv_bsr_pallas_interpret():
-    """Pallas kernel correctness via interpreter mode (no TPU needed)."""
-    a = stencil_csr(16, 16, dtype=np.float32)
-    b = BSR.from_csr(a, blocksize=(128, 128))
-    x = _x(a.shape[1], np.float32)
-    y = spmv_bsr_pallas(b, x, interpret=True)
-    ok, nf = ans_check(np.asarray(y), spmv_oracle(a, x), dtype=np.float32)
-    assert ok, f"{nf} mismatches"
-
-
 def test_spmv_dispatch():
     a = random_csr(32, 32, 0.2, seed=8)
     x = _x(32, np.float64)
     for fmt in (a, ELL.from_csr(a), BSR.from_csr(a, blocksize=(8, 128))):
-        y = spmv(fmt, x, use_pallas=False)
+        y = spmv(fmt, x)
         np.testing.assert_allclose(np.asarray(y), spmv_oracle(a, x),
                                    rtol=1e-10)
 
 
 def test_spmv_semirings(rng):
     """Pluggable semirings (the reference's Add/Multiply functor parity)."""
-    from nsparse_tpu.io.generate import random_csr
-    from nsparse_tpu.ops.spmv import spmv_csr
+    from nsparse_jax.io.generate import random_csr
+    from nsparse_jax.ops.spmv import spmv_csr
 
     a = random_csr(60, 50, density=0.1, seed=11)
     x = rng.standard_normal(50)
@@ -121,7 +110,7 @@ def test_spmv_semirings(rng):
 
 def test_spmm_multi_rhs(rng):
     """Y = A @ X for dense multi-vector right-hand sides."""
-    from nsparse_tpu.ops.spmv import spmm
+    from nsparse_jax.ops.spmv import spmm
 
     a = random_csr(60, 45, density=0.1, seed=13)
     x = rng.standard_normal((45, 7))
@@ -134,8 +123,8 @@ def test_spmm_multi_rhs(rng):
 
 
 def test_spmv_coo(rng):
-    from nsparse_tpu.formats.coo import COO
-    from nsparse_tpu.ops.spmv import spmv
+    from nsparse_jax.formats.coo import COO
+    from nsparse_jax.ops.spmv import spmv
 
     a = random_csr(40, 30, density=0.15, seed=17)
     s = a.to_scipy().tocoo()
@@ -163,8 +152,8 @@ def test_ell_semiring_matches_csr(rng, semiring):
 @pytest.mark.parametrize("semiring", ["min_plus", "max_times"])
 def test_dia_semiring_band_pattern(rng, semiring):
     # DIA semantics: the full stored diagonals are the pattern
-    from nsparse_tpu.formats.dia import DIA
-    from nsparse_tpu.ops.spmv import SEMIRINGS, _ELEM_REDUCE
+    from nsparse_jax.formats.dia import DIA
+    from nsparse_jax.ops.spmv import SEMIRINGS, _ELEM_REDUCE
 
     a = stencil_csr(16, 16, dtype=np.float64)
     dia = DIA.from_csr(a)
@@ -183,27 +172,6 @@ def test_dia_semiring_band_pattern(rng, semiring):
     np.testing.assert_allclose(got, want, rtol=1e-12)
 
 
-def test_ell_xshuffle_path(monkeypatch):
-    # irregular columns route the x-expansion through the planned shuffle
-    import nsparse_tpu.formats.ell as ellmod
-    import nsparse_tpu.ops.kernels.flat_gather as fg
-    import nsparse_tpu.ops.kernels.shuffle_pallas as shp
-
-    monkeypatch.setattr(ellmod, "XSH_MIN_SLOTS", 1)
-    monkeypatch.setattr(ellmod, "XSH_BAD_FRAC", 0.0)
-    monkeypatch.setattr(shp, "_FALLBACK_N", 1)
-    monkeypatch.setattr(shp, "_CPU_GATHER", False)
-    rng = np.random.default_rng(5)
-    a = random_csr(700, 5000, density=0.01, seed=13, dtype=np.float32)
-    ell = ELL.from_csr(a)
-    assert ell.xsh is not None
-    x = jnp.asarray(rng.standard_normal(5000), dtype=jnp.float32)
-    want = np.asarray(spmv(a.astype(np.float64), x.astype(jnp.float64)))
-    monkeypatch.setattr(fg, "FORCE_PALLAS", True)
-    got = np.asarray(spmv(ell, x))
-    np.testing.assert_allclose(got, want, rtol=2e-5, atol=1e-6)
-
-
 def test_ell_row_splitting_heavy_tail():
     """Power-law degree tails: hub rows split into <= split_width chunks
     (bounding slab padding); chunk partials recombine exactly."""
@@ -212,9 +180,9 @@ def test_ell_row_splitting_heavy_tail():
 
     import jax.numpy as jnp
 
-    from nsparse_tpu.formats.csr import CSR
-    from nsparse_tpu.formats.ell import ELL
-    from nsparse_tpu.ops.spmv import spmv_ell
+    from nsparse_jax.formats.csr import CSR
+    from nsparse_jax.formats.ell import ELL
+    from nsparse_jax.ops.spmv import spmv_ell
 
     rng = np.random.default_rng(9)
     m = 512

@@ -2,11 +2,11 @@
 
 import numpy as np
 
-from nsparse_tpu.io.generate import random_csr, stencil_csr
-from nsparse_tpu.ops.spmv import spmv
-from nsparse_tpu.tune.autotune import autotune_spmv
-from nsparse_tpu.tune.plan import Plan, matrix_fingerprint
-from nsparse_tpu.utils.checking import spmv_oracle
+from nsparse_jax.io.generate import random_csr, stencil_csr
+from nsparse_jax.ops.spmv import spmv
+from nsparse_jax.tune.autotune import autotune_spmv
+from nsparse_jax.tune.plan import Plan, matrix_fingerprint
+from nsparse_jax.utils.checking import spmv_oracle
 
 
 def test_autotune_returns_correct_format():
@@ -16,7 +16,7 @@ def test_autotune_returns_correct_format():
 
     fmt, plan = autotune_spmv(a, jnp.asarray(x), trials=2)
     assert plan.isPlan
-    y = spmv(fmt, jnp.asarray(x), use_pallas=False)
+    y = spmv(fmt, jnp.asarray(x))
     np.testing.assert_allclose(np.asarray(y), spmv_oracle(a, x), rtol=1e-8)
 
 
